@@ -1,21 +1,17 @@
-"""fargocpt_tpu — TPU-native protoplanetary-disk simulation framework.
+"""fargocpt_tpu — JAX protoplanetary-disk simulation framework.
 
-A brand-new JAX/XLA implementation of the capabilities of FargoCPT
-(2-D polar-grid disk hydrodynamics with FARGO orbital advection, N-body
-coupling, viscosity, energy equation, self-gravity, FLD radiative
-transfer, Lagrangian dust), designed TPU-first: state is a pytree of
-arrays, a time step is one fused jitted function, and multi-chip scaling
-uses a radial `jax.sharding.Mesh` with collective halo exchange instead of
-MPI.
+A JAX/XLA implementation of the capabilities of FargoCPT (2-D polar-grid
+disk hydrodynamics with FARGO orbital advection, N-body coupling,
+viscosity, energy equation, self-gravity, FLD radiative transfer,
+Lagrangian dust): state is a pytree of arrays, a time step is one jitted
+function, and multi-GPU scaling uses a radial `jax.sharding.Mesh` with
+collective halo exchange instead of MPI.
 
 Physics fidelity is gated by ports of the reference's analytic test suite
 (see tests/).
 """
 
 __version__ = "0.2.0"
-
-import sys as _sys
-
 
 def build_info() -> str:
     """Version + git commit/dirty stamp of the installed tree (reference
@@ -39,18 +35,11 @@ def build_info() -> str:
         pass
     return f"fargocpt_tpu {__version__} git {commit}{dirty}"
 
-# Lowering the Pallas kernels nested inside jit(while_loop(step)) recurses
-# deeper than CPython's default 1000-frame limit (JAX traces/lowers jaxprs
-# recursively); raise it once here.
-if _sys.getrecursionlimit() < 100000:
-    _sys.setrecursionlimit(100000)
-
 # x64 must be live BEFORE any array is built anywhere in the package: the
 # N-body system always integrates in f64 (IAS15's controller works below
 # the f32 noise floor), and float64 Simulations must get true-f64 initial
 # fields.  Enabling it lazily (e.g. in HydroStep.__init__) once truncated
-# the first Simulation's ICs to f32 and crashed the fused f32 transport
-# kernel on the resulting mixed-dtype state — see tests/test_driver_parity.py.
+# the first Simulation's ICs to f32 — see tests/test_driver_parity.py.
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
@@ -59,8 +48,8 @@ from . import config, constants, grid, params, state, units  # noqa: F401
 
 
 def enable_x64():
-    """Enable float64 (required for physics-fidelity tests; TPU benchmarks
-    typically run float32)."""
+    """Enable float64 (required for physics-fidelity tests; production
+    runs often use float32)."""
     import jax
     jax.config.update("jax_enable_x64", True)
 
@@ -71,9 +60,9 @@ def run(args, np=None, nt=None, stdout=None, exe=None, detach=False):
     (python_module/fargocpt/run.py:199).  ``args`` is the CLI argv, e.g.
     ``["start", "setup.yml", "-o", "out"]``.  The MPI/OpenMP process
     allocation knobs (np/nt) are accepted for drop-in compatibility but
-    unused: one process drives all local TPU devices through jit/mesh,
-    so there is nothing to allocate.  Returns the CLI exit code."""
-    del np, nt, exe, detach  # no mpirun/NUMA layer on the TPU runtime
+    unused: one process drives all local GPUs through jit/mesh, so there
+    is nothing to allocate.  Returns the CLI exit code."""
+    del np, nt, exe, detach  # no mpirun/NUMA layer in a JAX process
     import contextlib
 
     from . import __main__ as cli

@@ -22,7 +22,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
-import yaml
+
+from . import yamlio
 
 
 class GasVars:
@@ -101,7 +102,7 @@ class ParticleVars:
         self.factors: dict[str, float] = {}
         info = loader.outdir / "infoParticles.yml"
         if info.exists():
-            spec = yaml.safe_load(info.read_text()) or {}
+            spec = yamlio.load_file(info) or {}
             for col in (spec.get("particles", {}) or {}).get("columns", []):
                 self.columns.append(str(col["name"]))
                 self.factors[str(col["name"])] = float(col.get("factor", 1.0))
@@ -166,7 +167,7 @@ class Params:
             / "config.yml"
         if not path.exists():                      # fall back to the run copy
             path = loader.outdir / "parameters" / "setup.yml"
-        self._data = yaml.safe_load(path.read_text()) or {}
+        self._data = yamlio.load_file(path) or {}
 
     def __getitem__(self, key):
         for k, v in self._data.items():
@@ -202,13 +203,13 @@ class Loader:
         self.rmed = (2.0 / 3.0) * (rsup ** 3 - rinf ** 3) \
             / (rsup ** 2 - rinf ** 2)
         units_file = self.outdir / "units.yml"
-        self.units = yaml.safe_load(units_file.read_text()) \
+        self.units = yamlio.load_file(units_file) \
             if units_file.exists() else {}
         const_file = self.outdir / "constants.yml"
-        self.constants = yaml.safe_load(const_file.read_text()) \
+        self.constants = yamlio.load_file(const_file) \
             if const_file.exists() else {}
         info2d_file = self.outdir / "info2D.yml"
-        self.info2d = yaml.safe_load(info2d_file.read_text()) \
+        self.info2d = yamlio.load_file(info2d_file) \
             if info2d_file.exists() else {}
         self.gas = GasVars(self)
         self.particles = ParticleVars(self)

@@ -12,9 +12,8 @@ from __future__ import annotations
 
 from typing import Any
 
-import yaml
-
 from . import units as u
+from . import yamlio
 
 
 _TRUE_WORDS = {"yes", "y", "true", "t", "on", "1"}
@@ -55,8 +54,7 @@ class Config:
     # -- construction -------------------------------------------------------
     @classmethod
     def from_file(cls, path: str) -> "Config":
-        with open(path) as f:
-            data = yaml.safe_load(f)
+        data = yamlio.load_file(path)
         if data is None:
             data = {}
         return cls(data)

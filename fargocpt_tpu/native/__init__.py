@@ -1,6 +1,6 @@
 """Native (C++) runtime components, bound via ctypes.
 
-The compute path is JAX/XLA/Pallas; the runtime around it uses native code
+The compute path is JAX/XLA; the runtime around it uses native code
 where the reference does: here, an asynchronous snapshot writer replaces
 the reference's MPI-IO collective output (src/polargrid.cpp:135-186) so
 disk I/O overlaps with device compute.
@@ -21,24 +21,38 @@ _LIB_PATH = _HERE / "libasyncwriter.so"
 _lib = None
 
 
+def _stale() -> bool:
+    """True when the library is missing or older than its source (a
+    library left from another tree or an older source is rebuilt)."""
+    src = _HERE / "async_writer.cpp"
+    return (not _LIB_PATH.exists()
+            or src.stat().st_mtime > _LIB_PATH.stat().st_mtime)
+
+
 def _build() -> bool:
     src = _HERE / "async_writer.cpp"
+    # build beside the target and rename into place, so concurrent
+    # processes never load a half-written library
+    tmp = _LIB_PATH.with_name(f".{_LIB_PATH.name}.{os.getpid()}")
     try:
         subprocess.run(
             ["g++", "-O2", "-shared", "-fPIC", "-pthread", str(src),
-             "-o", str(_LIB_PATH)],
+             "-o", str(tmp)],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
         return True
-    except (subprocess.SubprocessError, FileNotFoundError):
+    except (subprocess.SubprocessError, OSError):
+        tmp.unlink(missing_ok=True)
         return False
 
 
 def load_library():
-    """Load (building if needed) the native library, or return None."""
+    """Load (building if missing or stale) the native library, or return
+    None."""
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists() and not _build():
+    if _stale() and not _build():
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))

@@ -3,7 +3,7 @@
 // Native replacement for the reference's collective MPI-IO output path
 // (reference src/polargrid.cpp:135-186 write2D / src/output.cpp:249-304
 // write_full_output): field buffers are copied into a queue and written to
-// disk by a background worker thread, so the simulation loop (and the TPU
+// disk by a background worker thread, so the simulation loop (and the GPU
 // pipeline feeding it) never stalls on disk I/O. Exposed through a plain C
 // ABI for ctypes.
 //

@@ -230,7 +230,7 @@ def integrate(state: NBodyState, G: float, dt, n_substeps: int = 16,
         # noise floor (~1e-7) — in f32 the trial step collapses to the
         # 1e-12*dt floor and every call burns the full 4096-substep
         # backstop while barely moving the bodies.  The body arrays are
-        # tiny, so the f64 upcast costs nothing even on TPU.
+        # tiny, so the f64 upcast costs nothing.
         f64 = jnp.float64
         x, y, vx, vy = integrate_ias15(
             state.x.astype(f64), state.y.astype(f64),

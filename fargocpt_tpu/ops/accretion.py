@@ -6,7 +6,7 @@ frac * R_Hill is removed per orbital period (log-2 normalized), with an
 inner zone accreting twice as hard; removed mass and momentum are added to
 the planet when disk feedback is on.
 
-TPU-native: the reference's index-window double loop becomes full-grid
+Vectorized: the reference's index-window double loop becomes full-grid
 masks (the Hill disk covers a tiny fraction of cells; the masked update is
 one fused pass per accreting body, and the momentum sums become
 cross-shard reduces under the mesh).

@@ -4,7 +4,7 @@ Re-derivation of reference src/fld.cpp: implicit diffusion of the gas
 temperature with Levermore-Pomraning-style flux limiter (Kley 1989 form)
 and a 5-point polar stencil, solved iteratively.
 
-TPU-native solver: red-black SOR inside a ``lax.while_loop``. The
+Solver: red-black SOR inside a ``lax.while_loop``. The
 reference's lexicographic SOR sweep is inherently sequential; red-black
 coloring turns each half-sweep into one fused masked update over the whole
 grid while keeping SOR's convergence rate. The reference's per-iteration
@@ -46,8 +46,8 @@ class FLDConfig:
     # after every red-black double sweep (src/fld.cpp:694-790); with
     # K > 1 the solve runs K sweeps between checks — it can only STOP
     # LATER (more converged) than K = 1, never earlier, so the result is
-    # tolerance-equivalent while the TPU saves K-1 of every K full-grid
-    # reductions + host-visible while_loop condition syncs.
+    # tolerance-equivalent while saving K-1 of every K full-grid
+    # reductions + while_loop condition evaluations.
     check_interval: int = 1
 
 

@@ -4,7 +4,7 @@ Re-derivation of reference src/Pframeforce.cpp:21-211
 (``CalculateNbodyPotential`` / ``CalculateAccelOnGas``) and the smoothing
 rules of src/Force.cpp:124-159. Bodies are given as small per-planet arrays
 (positions/masses), the loop over bodies is unrolled (N is tiny), and the
-per-cell work is pure elementwise math the MXU/VPU chews through.
+per-cell work is pure elementwise math that XLA fuses.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """PVTE equation of state: variable effective adiabatic index from
 hydrogen ionization/dissociation (Vaidya et al. 2015; D'Angelo et al. 2013).
 
-Re-derivation of reference src/pvte_law.cpp, TPU-first: instead of the
+Re-derivation of reference src/pvte_law.cpp, built for XLA: instead of the
 reference's 1000x1000 (rho, e) lookup tables (GSL + per-cell bilinear
 gathers), the temperature is solved per cell by a fixed-iteration
 bisection directly in-graph — every ingredient (ionization fraction x,
@@ -91,12 +91,10 @@ def zeta_table() -> tuple[np.ndarray, np.ndarray]:
     return np.log(T), _funcdum_exact_np(T)
 
 
-# piecewise-Chebyshev fit of funcdum(ln T): TPU gathers run at ~135M
-# elements/s (hardware-probed 2026-08-18), so the reference's per-cell
-# table interpolation (:77-101) is the single most expensive operation
-# of a PVTE step when vectorized over the grid (13.7 s/step at
-# 1024x3072). The fit below is pure VPU/MXU math — a (cells, K) one-hot
-# matmul selects the segment coefficients, then a Horner pass — and its
+# piecewise-Chebyshev fit of funcdum(ln T): it replaces the reference's
+# per-cell table interpolation (:77-101), a per-cell gather, with pure
+# arithmetic — a (cells, K) one-hot matmul selects the segment
+# coefficients, then a Horner pass — and its
 # max relative error (8.4e-8) is ~60x BELOW the 5000-entry table's own
 # linear-interpolation error (5.4e-6 vs the exact function).
 FUNCDUM_SEGMENTS = 32
@@ -206,8 +204,8 @@ def _gamma_mu_at(rho, T, x_mf, tabs):
 def _eps_lean(rho, t, x_mf, tabs):
     """eps(rho, T) with t = ln T carried by the solver: three exp calls
     total (exp(t) and the two Saha Boltzmann factors; T^1.5 is T*sqrt(T),
-    funcdum reuses t) — the solver's per-iteration cost is transcendental
-    bound on the TPU VPU, so every exp/log shaved shows up 1:1."""
+    funcdum reuses t) — the solver's per-iteration cost is dominated by
+    transcendentals, so every exp/log shaved counts."""
     T = jnp.exp(t)
     T32 = T * jnp.sqrt(T)
     cx = CGS_M_H / x_mf * (CGS_M_E * CGS_KB
@@ -295,7 +293,7 @@ def temperature_from_energy(e_specific_cgs, rho_cgs, x_mf, tabs,
     """Invert e(T, rho) = e_specific on [1, 1e7] K (replaces the
     reference's Brent + 2-D lookup tables, :243-395).
 
-    float32 (the TPU production dtype) takes the lean bisection+Illinois
+    float32 (the production dtype) takes the lean bisection+Illinois
     hybrid (19 cheap evaluations, max rel T error ~1e-5 worst-case /
     ~2e-6 at p99 — at the f32 state's own noise floor).  float64 keeps
     the original 48-halving
@@ -334,9 +332,8 @@ def temperature_from_energy(e_specific_cgs, rho_cgs, x_mf, tabs,
 #
 # The one-hot funcdum matmul above materializes a (cells, 32) selector per
 # evaluation and the fori_loop solver round-trips its bracket carries
-# through HBM every iteration — together ~88% of the PDS70 full-physics
-# step time (TPU ablation 2026-08-19: 28.4 Mcell/s full vs 237 with Ideal
-# EoS).  The path below removes every non-elementwise op so XLA fuses the
+# through device memory every iteration.  The path below removes every
+# non-elementwise op so XLA fuses the
 # whole refresh into a handful of kernels:
 #   * funcdum = 1.5 + dum2 + dum3 with dum2 ANALYTIC (one expm1; the
 #     vibrational term in reference src/pvte_law.cpp:305-369 is closed
@@ -758,7 +755,7 @@ class PVTE:
         # cold at 6.5e-6/1.1e-5 (sigma/energy) with n=1, statistically
         # identical to n=3's 6.9e-6/1.2e-5 (CPU sweep 2026-08-21); each
         # dropped iteration removes one full-grid derivative evaluation
-        # (~0.63 ms on the v5e) from every refresh.  The end-to-end gates
+        # from every refresh.  The end-to-end gates
         # are the PVTE budget test (warm vs cold < 1e-4 over ~200 steps)
         # and the dtype budget.  FARGOCPT_TPU_PVTE_NEWTON overrides for
         # A/B.
@@ -768,7 +765,7 @@ class PVTE:
         if self.lookup:
             # reference-exact table mode: quantizes (geff, mu, g1) onto
             # the reference's 1000x1000 grid; the default in-graph
-            # bisection is smoother and cheaper on TPU (no gathers)
+            # bisection is smoother and needs no gathers
             self.tables = tuple(jnp.asarray(t, dtype)
                                 for t in lookup_tables(self.x_mf))
 

@@ -2,14 +2,14 @@
 fast-orbital-advection azimuthal splitting (Masset 2000).
 
 Re-derivation of reference src/TransportEuler.cpp:112-685, restructured
-TPU-first:
+for XLA:
 
   * All advected quantities (radial/angular momenta, energy, density) are
     stacked into one (K, NR, NAZ) tensor so each sweep is a single fused
-    kernel chain instead of K separate passes over HBM.
-  * The per-ring integer-cell azimuthal roll (``AdvectSHIFT``) is NOT a
-    gather (gathers are slow on TPU): it is decomposed into O(log NAZ)
-    static lane-rolls + selects on the shift's binary digits.
+    kernel chain instead of K separate passes over device memory.
+  * The per-ring integer-cell azimuthal roll (``AdvectSHIFT``) is
+    decomposed into O(log NAZ) static rolls + selects on the shift's
+    binary digits (no gather).
   * The reference's "density MUST be advected last" aliasing constraint
     (src/TransportEuler.cpp:161,303) disappears: all quantities divide by
     the same pre-sweep density snapshot by construction.
@@ -104,17 +104,14 @@ def advect_shift(q: jax.Array, nshift: jax.Array) -> jax.Array:
     """Exact integer-cell azimuthal roll per ring — the FARGO trick
     (reference src/TransportEuler.cpp:238-268 ``AdvectSHIFT``).
 
-    TPU-native formulation: decompose the per-ring shift into its binary
-    digits and apply O(log NAZ) static full-array rolls with per-ring
-    selects — no gather (a (NR, NAZ) gather costs ~20x more than these
-    fused shifts on TPU).
+    Formulation: decompose the per-ring shift into its binary digits and
+    apply O(log NAZ) static full-array rolls with per-ring selects (no
+    gather).
 
     q: (..., NR, NAZ); nshift: (NR,) int32. out[.., i, j] = q[.., i, (j - s_i) mod NAZ].
     """
     naz = q.shape[-1]
     s = jnp.mod(nshift, naz).astype(jnp.int32)               # (NR,)
-    # off-TPU fallback: binary-digit decomposition into O(log NAZ) static
-    # full-array rolls + per-ring selects (no gather)
     sel = s[:, None]                                         # (NR,1)
     nbits = max(1, (naz - 1).bit_length())
     out = q
@@ -149,18 +146,6 @@ def velocities_from_momenta(g: Geom, sigma, rp, rm, ap, am, vrad_old,
     return vrad, vaz
 
 
-_TR_COLS_CACHE: dict = {}
-
-
-def _transport_cols(pk, g: Geom, dtype, tile: int):
-    """Memoized windowed geometry columns of the fused transport kernel
-    (static per geometry/dtype/tile — keep them out of the traced graph)."""
-    key = (id(g), jnp.dtype(dtype).name, tile)
-    if key not in _TR_COLS_CACHE:
-        _TR_COLS_CACHE[key] = pk.make_transport_prep(g, dtype, tile)
-    return _TR_COLS_CACHE[key]
-
-
 def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
               omega_frame, dt):
     """Full FARGO transport substep (reference src/TransportEuler.cpp:112-136
@@ -172,73 +157,20 @@ def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
     k_quant = 6 if adiabatic else 5
     k_sigma = k_quant - 1
 
-    from . import pallas_kernels as pk
-    # Mosaic's dynamic lane rotate (the FARGO shift) and the column-tiled
-    # radial kernel both need a 128-aligned azimuth
-    fuse = pk.use_pallas(sigma.dtype) and sigma.ndim == 2 \
-        and sigma.shape[-1] % 128 == 0
-    # the partial-fusion kernels below keep their DYNAMIC lane rotates
-    # (f32-only); f64 is fused only through the fully-fused kernel with
-    # its static-shift decomposition
-    if sigma.dtype == jnp.float64 and not (
-            fuse and g.nrad % (32 if g.nrad % 32 == 0 else 16) == 0):
-        fuse = False
-    fuse_radial = fuse
-
-    # ---- fully-fused path: the whole transport in one kernel ----
-    # tile=32 measured ~7% faster than 16 at 1024x3072 (smaller halo share)
-    mega_tile = 32 if g.nrad % 32 == 0 else 16
-    if fuse and g.nrad % mega_tile == 0:
-        vmean = jnp.mean(vaz, axis=-1, keepdims=True)        # (NR,1)
-        ntilde = vmean * g.inv_rb * dt * g.invdphi
-        nround = jnp.floor(ntilde + 0.5)
-        nshift = nround.astype(jnp.int32)[:, 0]
-        vconst = (ntilde - nround) * g.rb * g.dphi / dt
-        cols = _transport_cols(pk, g, sigma.dtype, mega_tile)
-        # float64 cannot use Mosaic's dynamic lane rotate (emulated-f64
-        # lowering recurses); route it through the static-roll+select
-        # decomposition. FARGOCPT_TPU_STATIC_SHIFT=1 forces it in f32
-        # for A/B timing.
-        import os as _os
-        static_shift = (sigma.dtype == jnp.float64
-                        or _os.environ.get("FARGOCPT_TPU_STATIC_SHIFT",
-                                           "") == "1")
-        return pk.transport_fused_pallas(
-            sigma, vrad, vaz, energy, cols, nshift, vmean, vconst, dt,
-            omega_frame, tile=mega_tile, adiabatic=adiabatic,
-            limiter=phys.flux_limiter_type, fast=phys.fast_transport,
-            dphi=g.dphi, static_shift=static_shift)
-
     # ---- radial sweep (OneWindRad, reference :138-167) ----
     density_star = star_radial(phys, g, sigma, vrad, dt)
-    if fuse_radial:
-        # fused momenta construction + sweep: the momentum batch is born
-        # inside the kernel, never staged through HBM
-        base = dt * g.dphi * g.ra * density_star * vrad       # sigma flux
-        rme = g.rmed_ext
-        zc = jnp.zeros((1, 1), rme.dtype)
-        cm = jnp.concatenate([zc, rme[1:] - rme[:-1]], axis=0)
-        cp = jnp.concatenate([rme[1:] - rme[:-1], zc], axis=0)
-        qs = pk.radial_momenta_sweep_pallas(
-            sigma, vrad, vaz, energy if adiabatic else sigma, base, dt,
-            omega_frame, g.rb, g.inv_diff_rmed, cm, cp, g.inv_surf,
-            k_quant=k_quant, limiter=phys.flux_limiter_type)
-        mass_flux = base
-    else:
-        rp, rm, ap, am = compute_momenta(g, sigma, vrad, vaz, omega_frame)
-        names = [rp, rm, ap, am] + ([energy] if adiabatic else []) + [sigma]
-        qs = jnp.stack(names, axis=0)                        # (K, NR, NAZ)
-        # compile-time guard (see step.py): keep the simplifier from
-        # relating the momenta construction to the post-sweep velocity
-        # reconstruction
-        qs = jax.lax.optimization_barrier(qs)
-        qs, flux = van_leer_radial_batch(phys, g, qs, sigma, density_star,
-                                         vrad, dt)
-        mass_flux = flux[k_sigma]
+    rp, rm, ap, am = compute_momenta(g, sigma, vrad, vaz, omega_frame)
+    names = [rp, rm, ap, am] + ([energy] if adiabatic else []) + [sigma]
+    qs = jnp.stack(names, axis=0)                            # (K, NR, NAZ)
+    # compile-time guard (see step.py): keep the simplifier from relating
+    # the momenta construction to the post-sweep velocity reconstruction
+    qs = jax.lax.optimization_barrier(qs)
+    qs, flux = van_leer_radial_batch(phys, g, qs, sigma, density_star,
+                                     vrad, dt)
+    mass_flux = flux[k_sigma]
 
     # ---- azimuthal sweep (OneWindTheta, reference :270-288) ----
-    vaz_for_mean = vaz
-    vmean = jnp.mean(vaz_for_mean, axis=-1, keepdims=True)   # (NR,1)
+    vmean = jnp.mean(vaz, axis=-1, keepdims=True)            # (NR,1)
     vres = vaz - vmean
     ntilde = vmean * g.inv_rb * dt * g.invdphi               # (NR,1)
     nround = jnp.floor(ntilde + 0.5)
@@ -253,21 +185,12 @@ def transport(phys: Physics, g: Geom, sigma, vrad, vaz, energy,
     else:
         passes = [vres, jnp.broadcast_to(vconst_row, vres.shape)]
 
-    tile = next((t for t in (16, 8, 32, 4, 2, 1) if g.nrad % t == 0), 1)
-    if fuse:
-        # one kernel: both sweeps + the integer roll, single HBM round-trip
-        qs = pk.fargo_theta_pallas(
-            qs, vres, vconst_row, nshift, g.rb, g.rsup - g.rinf, g.inv_surf,
-            dt, dphi=g.dphi, limiter=phys.flux_limiter_type, tile=tile,
-            two_pass=phys.fast_transport)
-    else:
-        for v in passes:
-            sig_now = qs[k_sigma]
-            density_star = star_theta(phys, g, sig_now, v, dt)
-            qs = van_leer_theta_batch(phys, g, qs, sig_now, density_star, v,
-                                      dt)
-        # integer shift (the FARGO roll), all quantities at once
-        qs = advect_shift(qs, nshift)
+    for v in passes:
+        sig_now = qs[k_sigma]
+        density_star = star_theta(phys, g, sig_now, v, dt)
+        qs = van_leer_theta_batch(phys, g, qs, sig_now, density_star, v, dt)
+    # integer shift (the FARGO roll), all quantities at once
+    qs = advect_shift(qs, nshift)
 
     rp, rm, ap, am = qs[0], qs[1], qs[2], qs[3]
     if adiabatic:

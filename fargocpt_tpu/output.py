@@ -30,8 +30,8 @@ from pathlib import Path
 
 import jax
 import numpy as np
-import yaml
 
+from . import yamlio
 from .ops import quantities as quant
 
 # column layout of Quantities.dat (reference src/output.cpp:39-76, v2.5)
@@ -83,8 +83,7 @@ class OutputWriter:
             defaults = getattr(getattr(sim, "cfg", None),
                                "consulted_values", lambda: {})()
             (self.outdir / "default_config.yml").write_text(
-                yaml.safe_dump(defaults, sort_keys=True,
-                               default_flow_style=False))
+                yamlio.dumps(defaults, sort_keys=True))
         # hook into the simulation
         sim.monitor_hooks.append(self._on_monitor)
         sim.snapshot_hooks.append(self._on_snapshot)
@@ -112,10 +111,9 @@ class OutputWriter:
         if not setup.exists():
             cfg = getattr(self.sim, "cfg", None)
             if cfg is not None and getattr(cfg, "_raw", None) is not None:
-                import yaml as _yaml
-                setup.write_text(_yaml.safe_dump(
+                setup.write_text(yamlio.dumps(
                     {cfg._orig_case[k]: v for k, v in cfg._raw.items()},
-                    sort_keys=False, default_flow_style=False))
+                    sort_keys=False))
 
     def _write_dimensions(self):
         g = self.sim.geometry
@@ -147,12 +145,10 @@ class OutputWriter:
             "energy surface density": {"unit": "erg cm^-2",
                                        "factor": un.energy_density},
         }
-        with open(self.outdir / "units.yml", "w") as f:
-            yaml.safe_dump(units, f)
+        (self.outdir / "units.yml").write_text(yamlio.dumps(units))
         c = self.sim.constants
-        with open(self.outdir / "constants.yml", "w") as f:
-            yaml.safe_dump({"G": c.G, "R": c.R, "sigma_sb": c.sigma_sb,
-                            "c": c.c}, f)
+        (self.outdir / "constants.yml").write_text(yamlio.dumps(
+            {"G": c.G, "R": c.R, "sigma_sb": c.sigma_sb, "c": c.c}))
 
     def _field_specs(self):
         un = self.sim.units
@@ -934,7 +930,7 @@ def last_snapshot_id(outdir: str | Path) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Distributed (shard-local) snapshot IO — the TPU-native analog of the
+# Distributed (shard-local) snapshot IO — the JAX analog of the
 # reference's MPI-IO slab writes (src/polargrid.cpp:135-186 write_polargrid
 # with per-rank offsets): each process writes only the rows of its
 # addressable JAX shards, one file per contiguous row range, named

@@ -1,10 +1,10 @@
-"""Multi-chip distribution: radial 1-D device mesh.
+"""Multi-device distribution: radial 1-D device mesh.
 
-TPU-native replacement for the reference's MPI radial domain decomposition
+Replacement for the reference's MPI radial domain decomposition
 (src/split.cpp:21-397, src/commbound.cpp:45-182): every (NR, NAZ) field is
 sharded along the radial axis over a ``jax.sharding.Mesh``; the stencil
 shifts inside the jitted step make XLA insert neighbor collective-permutes
-over ICI (the halo exchange), the CFL min becomes a cross-shard reduce,
+between devices (the halo exchange), the CFL min becomes a cross-shard reduce,
 and the FARGO integer shift rides the unsharded azimuthal axis with zero
 communication.
 
@@ -46,11 +46,11 @@ def shard_fields(fields, mesh: Mesh, nrad: int | None = None):
     boundary, so it enters replicated; GSPMD still computes on it
     shard-wise inside the step. The explicit shard_map halo-exchange path
     (parallel/shard_step.ShardedHydroStep) carries true sharded face slabs
-    instead — prefer it for production multi-chip runs.
+    instead — prefer it for production multi-device runs.
 
     Any other grid leaf whose leading dim is not divisible by the device
     count is replicated WITH A LOUD WARNING: a replicated "sharded" run
-    computes redundantly on every chip and will not scale. Pass ``nrad``
+    computes redundantly on every device and will not scale. Pass ``nrad``
     to distinguish the expected vrad case (NR+1 rows) from a genuinely
     indivisible grid."""
     import warnings

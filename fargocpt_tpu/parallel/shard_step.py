@@ -1,6 +1,6 @@
 """Explicit shard_map radial domain decomposition with ppermute halo rings.
 
-TPU-native re-derivation of the reference's MPI slab decomposition
+Re-derivation of the reference's MPI slab decomposition
 (src/split.cpp:21-397) + halo exchange (src/commbound.cpp:45-182
 ``CommunicateBoundaries`` with CPUOVERLAP=7 ghost rings,
 src/constants.h:17): each device of a 1-D ``("r",)`` mesh owns a
@@ -211,15 +211,6 @@ class ShardedHydroStep:
             d = ws.damping
             ctx["damping"] = (d.rate_b, d.in_b, d.out_b,
                               d.rate_a, d.in_a, d.out_a)
-        if ws._fuse_cfl:
-            ctx["cfl_cols"] = ws._cfl_cols
-        if getattr(ws, "_fuse_sources", False):
-            ctx["src_cols"] = ws._src_cols
-        if ws._artvisc_cols is not None:
-            ctx["artvisc_cols"] = ws._artvisc_cols
-        if getattr(ws, "_fuse_visc", False):
-            ctx["vk_cols"] = ws._vk_cols
-            self._vk_tile_ws = ws._vk_tile
         if self.shard_particles:
             # slab ownership interval [radii[kL], radii[(k+1)L]) with the
             # domain edges opened so frozen escapers stay bucketed
@@ -250,18 +241,6 @@ class ShardedHydroStep:
             (d.rate_b, d.in_b, d.out_b,
              d.rate_a, d.in_a, d.out_a) = ctx["damping"]
             st.damping = d
-        if "cfl_cols" in ctx:
-            st._cfl_cols = ctx["cfl_cols"]
-        if "src_cols" in ctx:
-            st._src_cols = ctx["src_cols"]
-        if "artvisc_cols" in ctx:
-            st._artvisc_cols = ctx["artvisc_cols"]
-        # the fused viscous kick follows the WINDOW stepper's gate (its
-        # row masks and column windows are built for the local Lx rows)
-        st._fuse_visc = "vk_cols" in ctx
-        if st._fuse_visc:
-            st._vk_cols = ctx["vk_cols"]
-            st._vk_tile = self._vk_tile_ws
         if "fld_red" in ctx:
             st._fld_halo_fn = lambda T: self._refresh_cell_array(T, ctx)
             st._fld_shard_ctx = {
@@ -581,13 +560,14 @@ class ShardedHydroStep:
                               jnp.asarray(dt, dtype), self._ctx)
 
     def comm_model(self, fld_iters: int = 50):
-        """Per-device per-hydro-step ICI traffic model, in bytes SENT.
+        """Per-device per-hydro-step inter-device traffic model, in bytes
+        SENT.
 
         The design choices this path makes (replicated-FFT self-gravity,
-        replicated particle swarm over all-gathered slabs) trade ICI
+        replicated particle swarm over all-gathered slabs) trade link
         bandwidth for simplicity; this model quantifies that trade so a
-        real multi-chip run has a prediction to check against profiler
-        numbers (pending real hardware — VERDICT r2 weak #8).
+        real multi-GPU run has a prediction to check against profiler
+        numbers (ROADMAP: validate against a 4-GPU trace).
 
         Validated against the collective ops of the COMPILED step HLO on
         the 8-device CPU mesh (tests/test_shard_map.py::

@@ -111,7 +111,7 @@ class Physics:
     fld_outer_boundary: str = "none"
     # SOR double-sweeps per convergence-norm check (repo extension;
     # >1 is tolerance-equivalent — the solve can only stop LATER — and
-    # saves the per-iteration full-grid reduction on TPU)
+    # saves the per-iteration full-grid reduction)
     fld_check_interval: int = 1
     # RadiativeDiffusionTest1D: pin the flux limiter at its optically-thick
     # value 1/3 (reference src/fld.cpp:129,:234 sets constant_fluxlimiter)

@@ -1,6 +1,6 @@
 """Radially sharded dust particles with ppermute boundary migration.
 
-TPU-native rebuild of the reference's distributed particle swarm
+Rebuild of the reference's distributed particle swarm
 (src/particles/particles.cpp:259-420 per-rank ownership by radial
 domain, :2016-2160 ``move`` — the two-phase inward/outward MPI migration
 sweep): each device of the 1-D radial mesh owns the particles whose
@@ -13,7 +13,7 @@ bidirectional ``lax.ppermute`` pair of fixed-size migration buffers.
 
 This replaces the round-1..4 replicated-swarm design that all_gathered
 four full gas slabs per step (shard_step.py ``_gather_fields``): per-step
-ICI traffic drops from 4 slab gathers (~MB, growing with mesh size) to
+inter-device traffic drops from 4 slab gathers (~MB, growing with mesh size) to
 two (F, E)-sized buffers (~KB, constant), and per-particle work is no
 longer duplicated n ways.
 

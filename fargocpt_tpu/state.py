@@ -4,8 +4,8 @@
 (src/data.h:12-141) with an immutable pytree of the *prognostic* fields
 only; everything the reference stores as scratch grids (pressure, sound
 speed, stress tensors, Q+, Q-, ...) is recomputed inside the fused jitted
-step, which is both simpler and faster on TPU (XLA fuses the chains and
-keeps intermediates in registers/VMEM instead of HBM round-trips).
+step, which is both simpler and faster (XLA fuses the chains and keeps
+intermediates on chip instead of round-tripping device memory).
 
 Shapes:
   * sigma, energy, vaz: (NR, NAZ)   — cell-centered (ring 0 / NR-1 ghost)

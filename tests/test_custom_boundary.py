@@ -1,6 +1,6 @@
 """Custom user boundary hook (reference src/boundary_conditions/custom.cpp).
 
-The reference ships a source template users edit and recompile; the TPU
+The reference ships a source template users edit and recompile; this
 rebuild loads a jax-traceable ``custom_boundary`` callable at runtime —
 either from a Python file named by ``CustomBoundaryModule`` or assigned
 directly to ``sim.stepper.custom_bc``."""

@@ -1,14 +1,12 @@
 """Error budget of the float32 production path vs the float64 reference
 path.
 
-The reference binary is all-double (src/types.h); this rebuild's TPU
-production path runs float32 through the fused Pallas kernels (gated by
-``pallas_kernels.use_pallas``), with float64 available everywhere as the
-validated jnp graph. The kernels themselves are pinned to the jnp path by
-interpret-mode parity tests at 1e-10 (tests/test_pallas_kernels.py); this
-test pins the remaining question — how much error float32 ARITHMETIC
-accumulates over a physically-relevant integration — so the
-f32-compute/f64-reference strategy has a measured budget, not a hope.
+The reference binary is all-double (src/types.h); this rebuild's
+production path runs float32, with float64 available everywhere as the
+validated reference-precision path; this test pins the question — how
+much error float32 ARITHMETIC accumulates over a physically-relevant
+integration — so the f32-compute/f64-reference strategy has a measured
+budget, not a hope.
 """
 
 import numpy as np

@@ -57,7 +57,7 @@ def test_eccentric_orbit_energy_and_return():
 @pytest.mark.slow
 def test_long_term_energy_drift():
     """1000 eccentric orbits in one exact-finish call per orbit:
-    energy drift < 1e-10 (VERDICT round-1 acceptance bar)."""
+    energy drift < 1e-10."""
     x, y, vx, vy, m, T = _two_body(0.9)
     E0 = _energy(x, y, vx, vy, m)
     step = jax.jit(

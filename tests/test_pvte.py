@@ -36,7 +36,7 @@ def gamma_at(rho, T):
 
 
 def test_funcdum_fit_matches_reference_table():
-    """The gather-free piecewise-Chebyshev funcdum (TPU production path)
+    """The gather-free piecewise-Chebyshev funcdum (production path)
     must agree with the reference's 5000-entry table (src/pvte_law.cpp
     :305-369 + :77-101 interpolation) to the table's own interpolation
     error (~5e-6 rel), across the full ln T range and at off-node

@@ -439,7 +439,7 @@ def test_sharded_rejects_indivisible():
 
 
 def test_comm_model_accounting():
-    """The per-step ICI traffic model (VERDICT r2 weak #8): exact bytes
+    """The per-step inter-device traffic model: exact bytes
     for the halo ppermute, and the all_gather categories appear only for
     the configs that pay them."""
     sim = Simulation(flagship_config(), dtype="float64")
@@ -482,7 +482,7 @@ def test_comm_model_accounting():
         == 7 * (192 // 8) * 64 * 8
 
 
-# --- comm model vs compiled HLO (VERDICT r4 #5) -------------------------
+# --- comm model vs compiled HLO ------------------------------------------
 
 _HLO_SIZES = {"f32": 4, "f64": 8, "s32": 4, "u32": 4, "pred": 1,
               "s64": 8, "u64": 8, "bf16": 2, "f16": 2}
@@ -550,9 +550,9 @@ def _close(a, b, tol=0.2):
 
 @pytest.mark.slow
 def test_comm_model_matches_compiled_hlo():
-    """The hand-built ICI traffic model (comm_model) vs the collectives
-    XLA actually compiled into the sharded step on the 8-device CPU mesh
-    (VERDICT r4 #5): every byte count must match the optimized HLO within
+    """The hand-built traffic model (comm_model) vs the collectives
+    XLA actually compiled into the sharded step on the 8-device CPU mesh:
+    every byte count must match the optimized HLO within
     20% (the stacked-exchange and all_gather entries match exactly)."""
     n = 8
 

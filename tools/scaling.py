@@ -2,14 +2,13 @@
 """Strong-scaling harness (analog of reference test/scaling/test_scaling.py).
 
 Sweeps device counts over a radial jax.sharding.Mesh and reports wall time
-per hydro step. On a real TPU slice the devices are chips and the
-collectives ride ICI; on CPU the same sweep runs on virtual devices
-(XLA_FORCE_HOST_PLATFORM_DEVICE_COUNT) to validate the sharded program and
-measure surplus collective overhead.
+per hydro step. On GPUs the collectives ride NVLink; with --cpu the same
+sweep runs on virtual CPU devices to validate the sharded program (CPU
+times are not device numbers).
 
 Usage:
     python tools/scaling.py [--nrad 256] [--naz 768] [--steps 20]
-        [--devices 1,2,4,8] [--cpu]
+        [--devices 1,2,4,8] [--dtype float64|float32] [--cpu]
 
 Writes scaling.txt rows: n_devices  ms_per_step  speedup.
 """
@@ -30,20 +29,16 @@ def main():
     ap.add_argument("--devices", default="1,2,4,8")
     ap.add_argument("--cpu", action="store_true",
                     help="force CPU with virtual devices")
+    ap.add_argument("--dtype", default="float64",
+                    choices=["float64", "float32"])
     ap.add_argument("--out", default="scaling.txt")
     args = ap.parse_args()
     counts = [int(x) for x in args.devices.split(",")]
 
-    import os
-    if args.cpu:
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={max(counts)}")
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
-    import jax.numpy as jnp
+        jax.config.update("jax_num_cpu_devices", max(counts))
     from __graft_entry__ import _flagship
     from fargocpt_tpu.parallel.shard_step import ShardedHydroStep
     from fargocpt_tpu.parallel.mesh import make_mesh
@@ -54,8 +49,7 @@ def main():
         if n > len(jax.devices()):
             print(f"skipping n={n}: only {len(jax.devices())} devices")
             continue
-        sim = _flagship(args.nrad, args.naz, "float32"
-                        if jax.default_backend() == "tpu" else "float64")
+        sim = _flagship(args.nrad, args.naz, args.dtype)
         dt0 = float(sim.stepper.cfl_dt(sim.state)) * 0.5
         t_target = args.steps * dt0
         if n == 1:
